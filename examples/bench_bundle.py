@@ -20,6 +20,9 @@ from qrkit_tpu.examples.bundle import fit_bundle, fit_bundle_device, make_scene
 
 
 def main():
+    from qrkit_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     args = [a for a in sys.argv[1:] if a != "--host-loop"]
     host_loop = "--host-loop" in sys.argv[1:]
     cases = args or ["200,4", "1000,8", "5000,8", "20000,8"]

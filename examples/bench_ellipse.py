@@ -30,6 +30,9 @@ from qrkit_tpu.lm import LMConfig
 
 
 def main():
+    from qrkit_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     sizes = [int(a) for a in sys.argv[1:]] or [500, 2000, 10000, 100000, 500000]
     el = Ellipse(7.5, 2.0, 17.0, 23.0, 0.23)
     dtype = jnp.float32

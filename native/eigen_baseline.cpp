@@ -1,7 +1,7 @@
 // Baseline measurement tool: Eigen SparseQR factorize+solve wall time on a
 // block-diagonal least-squares problem (the BASELINE.json config-2 shape:
 // nb dense blocks of br x bc on the diagonal).  Used once to produce
-// bench_baseline.json; mirrors what bench.py times on the TPU side.
+// bench_baseline.json; mirrors what bench.py times on the accelerator.
 //
 // Build: g++ -O3 -DNDEBUG -I <eigen include> eigen_baseline.cpp -o eigen_baseline
 // Run:   ./eigen_baseline <nb> <br> <bc> [reps]

@@ -1,6 +1,6 @@
 // qrkit_host — native host-side structure engine (C ABI, loaded via ctypes).
 //
-// TPU-native counterpart of the reference's header-only C++ analysis tier
+// Accelerator-side counterpart of the reference's header-only C++ analysis tier
 // (/root/reference/src/QRKit/SparseQRUtils.h:179-386, SparseQROrdering.h):
 // the pointer-chasing pattern analysis, orderings and dense-panel extraction
 // run on the host CPU and feed static plans / padded panels to the XLA device

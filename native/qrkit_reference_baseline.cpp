@@ -1,7 +1,7 @@
 // Baseline measurement tool #2: the reference QRKit's own
 // BlockDiagonalSparseQR (ColPivHouseholderQR per block) factorize+solve wall
 // time on the same block-diagonal least-squares problem bench.py times on the
-// TPU (nb dense blocks of br x bc, uniform(0.5, 5) values, double precision).
+// accelerator (nb dense blocks of br x bc, uniform(0.5, 5) values, double precision).
 //
 // This measures the REFERENCE implementation itself (headers included from
 // /root/reference, unmodified) so bench.py's vs_baseline comparisons can cite

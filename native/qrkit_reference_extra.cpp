@@ -1,6 +1,6 @@
 // Baseline measurement tool #3: the reference QRKit's BandedBlockedSparseQR
 // and BlockAngularSparseQR factorize+solve wall times on the same problem
-// shapes this repo benches on TPU (VERDICT r2 item 6):
+// shapes this repo benches on the accelerator:
 //
 //   banded       — the BASELINE config-3 shape (examples/bench_banded.py
 //                  config3): nb blocks of br x bc overlapping ov columns

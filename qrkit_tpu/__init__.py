@@ -1,17 +1,17 @@
-"""qrkit_tpu — TPU-native composable structured sparse QR.
+"""qrkit_tpu — composable structured sparse QR for accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 QRKit C++/Eigen library (WACV 2018): QR factorization of block-diagonal,
 (row-permuted) block-banded, blocked-thin and block-angular ``[A1 | A2]``
 matrices, with Q stored implicitly as compact-WY (Y·T·Yᵀ) Householder blocks and
-applied lazily.  The design is TPU-first:
+applied lazily.  The design is accelerator-first:
 
-* per-block dense QR → batched/vmapped compact-WY panel kernels on the MXU
-  (Pallas lane-batched kernels for tiny blocks);
+* per-block dense QR → batched/vmapped compact-WY panel kernels (a fused
+  Pallas kernel on the Triton route for tiny blocks on the GPU);
 * the banded solver's sequential inter-block carry → ``lax.scan``;
 * the OpenMP per-column loops of Q·A → whole-matrix batched matmuls;
 * multi-chip scaling → ``jax.sharding.Mesh`` + ``shard_map`` over the block axis
-  and TSQR reduction trees over ICI (no NCCL/MPI translation).
+  and TSQR reduction trees whose collectives XLA inserts.
 
 Structure analysis runs host-side (NumPy / native C++) and yields static,
 hashable :class:`~qrkit_tpu.plan.StructurePlan` objects keying the jit cache —

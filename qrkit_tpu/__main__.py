@@ -25,7 +25,7 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="python -m qrkit_tpu",
-        description="Structured sparse QR (TPU-native) on MatrixMarket files.",
+        description="Structured sparse QR on MatrixMarket files.",
     )
     p.add_argument("matrix", help="MatrixMarket file of A")
     p.add_argument("-b", "--rhs", help="MatrixMarket/plain-text RHS vector b")
@@ -147,4 +147,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .runtime import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -1,14 +1,19 @@
 """ctypes bindings for the native host structure engine (native/qrkit_host.cpp).
 
-Loaded lazily; every caller falls back to the NumPy reference implementation
-when the shared library hasn't been built (``make -C native``) or when
-``QRKIT_TPU_NATIVE=0``.  Behavioral parity between the two paths is enforced by
-tests/test_native.py.
+Loaded lazily: the first use compiles ``native/qrkit_host.cpp`` into
+``native/build/libqrkit_host.so`` (a directory ``.gitignore`` lists) with the
+host C++ compiler (``$CXX``, default ``g++``).  Every caller falls back to the
+NumPy reference implementation when the library cannot be built or when
+``QRKIT_TPU_NATIVE=0``.  Behavioral parity between the two paths is enforced
+by tests/test_native.py.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -19,6 +24,43 @@ _TRIED = False
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _F64 = ctypes.POINTER(ctypes.c_double)
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
+)
+_SRC = os.path.join(_NATIVE_DIR, "qrkit_host.cpp")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_SO = os.path.join(_BUILD_DIR, "libqrkit_host.so")
+_CXXFLAGS = ["-O3", "-DNDEBUG", "-fPIC", "-std=c++17", "-shared"]
+
+
+def _build() -> Optional[str]:
+    """Compile the engine if the library is missing or older than its
+    source.  Concurrent builders (``pytest -n``) each compile to their own
+    temp file and publish it with an atomic ``os.replace``, so a reader
+    never sees a partial library."""
+    if not os.path.exists(_SRC):
+        return None
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return _SO
+    cxx = os.environ.get("CXX", "g++")
+    if shutil.which(cxx) is None:
+        return None
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            [cxx, *_CXXFLAGS, "-o", tmp, _SRC],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, _SO)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return _SO
+
 
 def _lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
@@ -27,12 +69,8 @@ def _lib() -> Optional[ctypes.CDLL]:
     _TRIED = True
     if os.environ.get("QRKIT_TPU_NATIVE", "1") == "0":
         return None
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "native",
-        "libqrkit_host.so",
-    )
-    if not os.path.exists(path):
+    path = _build()
+    if path is None:
         return None
     try:
         lib = ctypes.CDLL(path)

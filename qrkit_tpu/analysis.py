@@ -1,6 +1,6 @@
 """Host-side structure analysis: orderings + block detection.
 
-TPU-native re-design of the reference's analysis layer:
+Re-design of the reference's analysis layer:
 
 * ``column_density``      — SparseQROrdering::ColumnDensity
   (/root/reference/src/QRKit/SparseQROrdering.h:22-50)
@@ -15,7 +15,7 @@ All of it runs on the host over CSR index arrays (NumPy with an optional C++
 native backend, see qrkit_tpu/_native.py) and produces a static
 :class:`~qrkit_tpu.plan.StructurePlan` that parameterizes the jitted device code.
 The analysis is pure pattern work — no floating point — so there is no reason to
-put it on the TPU; it is the "compiler front-end" of the framework.
+put it on the accelerator; it is the "compiler front-end" of the framework.
 """
 from __future__ import annotations
 

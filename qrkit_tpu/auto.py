@@ -199,11 +199,9 @@ def _csr_solver(
         if prefer_segmented is False and (
             plan.num_blocks < 2 * SegmentedBandedQR.DEFAULT_SEGMENT_BLOCKS
         ):
-            # only short chains keep the plain scan; the segmented form now
-            # wins tall-block chains too (bench_banded.py config3 — a
-            # 2499-chain of 40x8 blocks: factorize 70 vs 167 ms, solve 3.5
-            # vs 51 ms once the boundary chain runs as one fused Pallas
-            # launch and phase 2 streams with static windows)
+            # only short chains keep the plain scan; long chains, tall
+            # blocks included (bench_banded.py config3), take the segmented
+            # form, whose sequential part is ~nb/L steps instead of nb
             solver = BandedBlockedQR(suggested_block_cols=suggested_block_cols)
             solver.set_analysis(plan, perm)
             return solver, "banded_blocked"

@@ -1,11 +1,11 @@
 """Structured-matrix containers (device-side, pytree-friendly).
 
-TPU-native analogs of the reference's L2 containers:
+Accelerator analogs of the reference's L2 containers:
 
 * :class:`BlockDiagonal`  — ``SparseBlockDiagonal<BlockMatrixType>``
   (/root/reference/src/QRKit/SparseBlockDiagonal.h:43-163).  Instead of a
   vector of heterogeneous Eigen blocks it stores one dense ``[nb, br, bc]``
-  array — the shape a vmapped MXU kernel wants.
+  array — the shape a vmapped batched kernel wants.
 * :class:`BlockMatrix1x2` — the non-owning ``[Left | Right]`` composite view
   (/root/reference/src/QRKit/BlockMatrix1x2.h:31-67).
 """
@@ -34,13 +34,11 @@ class BlockDiagonal:
     reference appends an identity Q tail for those,
     BlockDiagonalSparseQR.h:530-533).
 
-    Storage is either the AoS batch ``[nb, br, bc]`` (the shape a vmapped MXU
+    Storage is either the AoS batch ``[nb, br, bc]`` (the shape a vmapped
     kernel wants for large blocks) or, via :meth:`from_soa`, the lane-major
-    SoA form ``[br*bc, nb]`` (entry (r, c) of block i at ``[r*bc + c, i]``).
-    For small blocks SoA is the only HBM-honest layout: a ``[N, 2, 1]`` f32
-    batch is physically tiled to ``[N, 8, 128]`` — a 512× padding blowup —
-    while the SoA twin stores the same values at 1× (CLAUDE.md lane-padding
-    hazard; the Pallas solver tier consumes SoA directly).  Either form
+    SoA form ``[br*bc, nb]`` (entry (r, c) of block i at ``[r*bc + c, i]``),
+    which the fused lane-major programs and the block kernel read
+    directly.  Either form
     materializes the other lazily through :attr:`blocks` / :meth:`soa`
     (cached outside the pytree so jit signatures stay stable).
     """
@@ -209,11 +207,8 @@ class BlockMatrix1x2:
     (BlockMatrix1x2.h:42).
 
     ``right_t=True`` marks a dense right block stored TRANSPOSED
-    (``[m2, m]`` — the m2 angular columns as rows).  For small m2 this is
-    the only HBM-honest resident layout: a ``[2N, 5]`` f32 array is
-    physically tiled to ``[2N, 128]`` — a 25× padding blowup — while the
-    transposed store is 1× and feeds the lane-major fused solver path
-    without relayout.
+    (``[m2, m]`` — the m2 angular columns as rows), the layout the
+    lane-major fused solver path reads without relayout.
     """
 
     left: Any

@@ -278,10 +278,8 @@ def block_angular_lstsq(
 def _soa_tall_qr_solve(X: jnp.ndarray, y: jnp.ndarray, m2: int):
     """LS solve of a tall-skinny system stored lane-major.
 
-    ``X [m2, L]`` holds the tall matrix M [L, m2] TRANSPOSED (rows of M are
-    TPU lanes) and ``y [L]`` the RHS.  A [L, m2] array would be physically
-    padded to 128 lanes — a 128/m2 HBM blowup; lane-major storage keeps every
-    op at full lane utilization.  Householder QR with the pivot *lane* masked
+    ``X [m2, L]`` holds the tall matrix M [L, m2] TRANSPOSED (rows of M on
+    the minor axis) and ``y [L]`` the RHS.  Householder QR with the pivot *lane* masked
     per step (the reflector lives along the lane axis), then the m2×m2
     triangular solve on the extracted R.  Returns x2 [m2].
     """
@@ -328,16 +326,15 @@ def lm_damped_step_blockdiag(
 
     Solves ``min ‖[J; √λ·I] δ + [r; 0]‖`` for ``J = [blkdiag(left_i) | right]``
     with ``left_i`` the [bl, bc] block of point i — the flagship 7×2 family
-    with angular columns.  Everything stays lane-major (block axis = TPU
-    lanes): bc unrolled per-lane Householder steps with trailing updates on
+    with angular columns.  Everything stays lane-major (block axis minor):
+    bc unrolled per-lane Householder steps with trailing updates on
     the remaining block columns, right rows and RHS; lane-pivoted Householder
     QR of the skinny bottom panel; per-lane bc×bc back-substitution.  Damping
     rows are analytic: √λ·I_bc under each block (the reference's 7×2 → 9×2
     LM-damping pattern, test-utils.cpp:254-274) and √λ·I_m2 at the tail.
 
     Returns ``(x1 [bc, nb], x2 [m2])`` — x1 stays lane-major; interleave with
-    ``x1.T.reshape(-1)`` only if an AoS vector is genuinely needed (that
-    relayout re-pads to 128 lanes).
+    ``x1.T.reshape(-1)`` only if an AoS vector is genuinely needed.
     """
     bl, bc, nb = left.shape
     m2 = right.shape[1]
@@ -426,7 +423,6 @@ def lm_damped_step_blockdiag1(
 ) -> jnp.ndarray:
     """Single-column (bc = 1) lane-major damped LM step — thin wrapper over
     :func:`lm_damped_step_blockdiag` returning the flat ``[nb + m2]`` delta the
-    LM drivers consume (one [nb]-row concat; no 128-lane re-padding since
-    x1 has a single row)."""
+    LM drivers consume (one [nb]-row concat: x1 has a single row)."""
     x1, x2 = lm_damped_step_blockdiag(left[:, None, :], right, res, lam)
     return jnp.concatenate([x1[0], x2])

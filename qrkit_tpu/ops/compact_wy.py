@@ -1,6 +1,6 @@
 """Sequence-of-compact-WY-blocks implicit Q (the SparseBlockYTY analog).
 
-TPU-native re-design of the reference's ``SparseBlockYTY`` + ``sequenceYTY``
+Accelerator re-design of the reference's ``SparseBlockYTY`` + ``sequenceYTY``
 fused product (/root/reference/src/QRKit/SparseBlockYTY.h:69-144, BlockYTY.h):
 
 * Each block k applies ``w += Y_k ((T_k or T_kᵀ) (Y_kᵀ w))`` to a *window* of the
@@ -87,8 +87,7 @@ class CompactWYSeq:
     zero so padded blocks act as identity on the padded region.
 
     Like :class:`TwoSegmentWYSeq`, the pytree LEAVES store Y and T flattened
-    per block so a jit-boundary crossing does not materialize the
-    (128/C)-fold lane-padded [nb, W, C] layout; the 3-D views are reshapes
+    per block (contiguous per block across a jit boundary); the 3-D views are reshapes
     for use inside jitted code (and the cold concat/export paths).
     """
 
@@ -228,9 +227,8 @@ def _apply_two_seg(seq: "TwoSegmentWYSeq", M: jnp.ndarray, transpose: bool, vec:
 def _apply_two_seg_cols(seq: "TwoSegmentWYSeq", M: jnp.ndarray, transpose: bool, vec: bool):
     """Lane-major variant of :func:`_apply_two_seg` for NARROW operands.
 
-    A [m, k] operand with k ≪ 128 is physically padded to 128 lanes (128×
-    for a solve vector); transposed to [k, m] the long axis sits in lanes and
-    every per-step window slice/update moves ~k/128 of the bytes.  Same math:
+    Transposed to [k, m] the long axis is minor, so every per-step window
+    slice/update of a narrow operand moves contiguous rows.  Same math:
     (Y (T' (Yᵀ w)))ᵀ = wᵀ Y T'ᵀ Yᵀ.
     """
     if vec:
@@ -286,9 +284,7 @@ class TwoSegmentWYSeq:
     O(A) rows instead of O(window).
 
     The pytree LEAVES hold Y and T flattened per block ([nb, A·C] /
-    [nb, C·C]): a [nb, A, C] leaf crossing a jit boundary gets the default
-    tiled layout, which pads the C ≪ 128 minor dim ~(128/C)-fold in HBM —
-    ~15× the factor bytes written per factorize and re-read per solve.  The
+    [nb, C·C]), so a jit boundary sees one contiguous row per block.  The
     3-D views (:attr:`Y` / :attr:`T`) are reshapes; access them only inside
     jitted code, where the layout is the compiler's business.
     """
@@ -328,7 +324,7 @@ class TwoSegmentWYSeq:
     def _apply(self, M: jnp.ndarray, transpose: bool) -> jnp.ndarray:
         vec = M.ndim == 1
         k = 1 if vec else M.shape[1]
-        if k <= 16:  # narrow operands lane-pad ≥ 8×; use the transposed form
+        if k <= 16:  # narrow operands: the transposed (long axis minor) form
             return _apply_two_seg_cols(self, M, transpose, vec)
         return _apply_two_seg(self, M, transpose, vec)
 

@@ -1,11 +1,11 @@
-"""Dense panel Householder QR in compact-WY form — the MXU workhorse.
+"""Dense panel Householder QR in compact-WY form — the batched-GEMM workhorse.
 
-TPU-native replacement for the reference's per-block ``Eigen::HouseholderQR`` +
+Accelerator replacement for the reference's per-block ``Eigen::HouseholderQR`` +
 ``make_block_householder_triangular_factor`` calls
 (/root/reference/src/QRKit/BandedBlockedSparseQR.h:468-477,
 BlockedThinQRBase.h:321-333).  All shapes are static; the per-column loop is
 unrolled at trace time and the trailing updates are matmuls, so a ``vmap`` over a
-block batch turns the whole factorization into large batched GEMMs on the MXU.
+block batch turns the whole factorization into large batched GEMMs.
 
 Conventions (identical to the reference so factors are interchangeable):
 
@@ -40,11 +40,14 @@ __all__ = [
 def highest_precision(fn):
     """Trace ``fn`` with full-precision matmuls.
 
-    On TPU, fp32 ``jnp.dot``/``@`` defaults to bf16 MXU passes — fine for neural
-    nets, wrong for a QR factorization (orthogonality degrades to ~1e-3).  Every
-    kernel entry point in this library is wrapped so its matmuls request
-    HIGHEST precision; the blocks are small and latency/bandwidth-bound, so the
-    extra MXU passes are free.
+    On an NVIDIA GPU a float32 ``jnp.dot``/``@``/``einsum`` at the default
+    precision may run on the tensor cores in TF32 (about three decimal
+    digits) — fine for neural nets, wrong for a QR factorization
+    (orthogonality degrades to ~1e-3).  Every kernel entry point in this
+    library is wrapped so its matmuls request HIGHEST precision (full fp32);
+    the blocks are small and latency/bandwidth-bound, so the slower matmul
+    path costs little.  tests/test_chip_smoke.py audits the main paths for
+    any matmul traced outside such a scope.
     """
 
     @functools.wraps(fn)
@@ -146,7 +149,7 @@ def panel_qr_yt(
     """Blocked compact-WY QR: returns (Y [m, n], T [n, n], R [m, n]).
 
     Recursively splits wide panels so the trailing update is a single large
-    matmul chain per sub-panel — keeps the MXU fed for thin-QR workloads.
+    matmul chain per sub-panel — large GEMMs for thin-QR workloads.
     ``R`` is the reduced matrix (upper-trapezoidal below row ``offset``).
 
     Panels wider than ``_LAPACK_QR_MIN_WIDTH`` (with offset 0) delegate to the
@@ -159,10 +162,9 @@ def panel_qr_yt(
     if offset == 0 and n > _LAPACK_QR_MIN_WIDTH and m >= n:
         # portrait only: geqrf yields min(m, n) reflectors, so the landscape
         # case must keep the recursive path (whose trapezoidal Y handles it).
-        # fp32-TPU precision verified: Q orthogonality ~6e-7 for [2000, 200],
-        # same as the recursive path (measure any on-device QᵀQ probe in fp64
-        # on the host — an fp32 verification matmul itself runs at bf16 and
-        # reads as a false 3e-3 failure)
+        # (measure any on-device QᵀQ probe in fp64 on the host — an fp32
+        # verification matmul outside a highest-precision scope itself runs
+        # in TF32 and reads as a false ~1e-3 failure)
         return panel_qr_yt_lapack(A, panel_width)
     if n <= panel_width:
         Y, taus, Ared = householder_qr_unblocked(A, offset)
@@ -333,13 +335,9 @@ def batched_panel_qr_yt(blocks: jnp.ndarray, panel_width: int = 16):
 def panel_qr_yt_soa(A: jnp.ndarray):
     """Batched unblocked Householder QR on a lane-major SoA batch.
 
-    ``A`` is ``[m, n, B]`` — the batch axis LAST, so it lands in TPU lanes
-    and every per-batch scalar of the recurrence (norms, taus, pivots) is a
-    full lane vector; column ops run on dense ``[m, B]`` tiles.  The AoS
-    form ``[B, m, n]`` with n ≪ 128 is 128/n-fold lane-padded, and a vmapped
-    :func:`panel_qr_yt` over it pays that padding on every one of its n
-    column passes — the CAQR bottom-slab stage of ``SegmentedBandedQR`` ran
-    16× more HBM traffic than its logical bytes that way.
+    ``A`` is ``[m, n, B]`` — the batch axis LAST (minor), so every
+    per-batch scalar of the recurrence (norms, taus, pivots) is a full
+    vector over the batch and column ops run on dense ``[m, B]`` tiles.
 
     Conventions match :func:`householder_qr_unblocked` +
     :func:`build_t_factor` exactly (v[j] = 1, tau = 0 on degenerate
@@ -350,7 +348,7 @@ def panel_qr_yt_soa(A: jnp.ndarray):
     Returns ``(Y [m, n, B], T [n, n, B], R_top [n, n, B])`` where R_top is
     the leading n rows of the reduced matrix (upper-triangular part = R).
     All contractions are written as broadcast-multiply + axis-sum so XLA
-    lowers them to VPU elementwise/reduce ops over the lane axis — no
+    lowers them to elementwise/reduce ops over the batch axis — no
     dot_general that could force a relayout of the SoA operands.
     """
     m, n, B = A.shape

@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference's only parallelism is std::thread / OpenMP inside one process
-(SURVEY §2.3); the TPU-native distribution story is a ``jax.sharding.Mesh``
+(SURVEY §2.3); the distribution story here is a ``jax.sharding.Mesh``
 with the *block axis as the data-parallel axis*: block-diagonal QR is
 embarrassingly parallel over blocks, so sharding the leading ``[nb, ...]`` axis
 is all XLA's SPMD partitioner needs — collectives only appear where composition

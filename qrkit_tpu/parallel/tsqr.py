@@ -1,9 +1,9 @@
 """TSQR — communication-avoiding tall-skinny QR over the device mesh.
 
 The reference has no distributed backend at all (SURVEY §5.8); the block-angular
-right block (``Q1ᵀA2``, tall and narrow) is the one place the TPU design *needs*
-a cross-chip reduction: each shard factors its local row panel independently,
-the tiny per-shard R factors are all-gathered over ICI, and a second-stage QR of
+right block (``Q1ᵀA2``, tall and narrow) is the one place the design *needs*
+a cross-device reduction: each shard factors its local row panel independently,
+the tiny per-shard R factors are all-gathered, and a second-stage QR of
 the stacked Rs produces the global factor.  Written as plain batched jnp ops so
 XLA's SPMD partitioner inserts the all-gather when the leading axis is sharded —
 no hand-written collectives (the "let XLA insert collectives" recipe).

@@ -1,6 +1,6 @@
 """Static structure plans.
 
-A :class:`StructurePlan` is the TPU-native analog of the reference's
+A :class:`StructurePlan` is the analog of the reference's
 ``analyzePattern`` output (``SparseQRUtils::BlockBandedMatrixInfo``,
 /root/reference/src/QRKit/SparseQRUtils.h:179-386).  It is a *hashable, frozen*
 host-side object: jitted factorization kernels take it as a static argument, so

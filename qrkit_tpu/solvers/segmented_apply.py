@@ -26,11 +26,9 @@ def _segment_apply_cols(Yws, Ts, s1, s2, split, vt, h1: int, transpose: bool):
     """Per-segment two-segment Q/Qᵀ apply on LANE-MAJOR operands [S, k, rows].
 
     Same math as :func:`_segment_apply`, but the operand is stored transposed
-    so the long row axis sits in TPU lanes: a [seg_rows, k] operand with
-    k ≪ 128 (a 2o-column slab, or k=1 for a solve vector) is physically
-    padded up to 128 lanes — 16–128× its logical size; as [k, seg_rows] the
-    padding is gone and every per-step dynamic slice/update moves that much
-    less.  Used on the factorize (Qᵀ·A_B) and fused-solve paths; general
+    so the long row axis is minor: every per-step dynamic slice/update
+    then moves contiguous runs of a [k, seg_rows] operand (a 2o-column slab,
+    or k=1 for a solve vector).  Used on the factorize (Qᵀ·A_B) and fused-solve paths; general
     matrix applies keep the row-major form.
     """
     S, k, R = vt.shape
@@ -79,8 +77,7 @@ def _segment_apply_cols_shared(Yws, Ts, s1u, s2u, spu, vt, h1: int, transpose: b
     sequence (s1/s2/split per chain step — verified by the caller's
     ``_p2_uniform`` gate), so each step's windows can be cut with a single
     batch ``dynamic_slice`` over all segments.  The vmapped per-segment form
-    lowers those slices to gathers over the whole work buffer and dominated
-    the factorize pipeline (144 ms of 241 ms at 20k blocks).  Segments whose
+    lowers those slices to gathers over the whole work buffer.  Segments whose
     trailing steps are inactive (the padded tail) are exact no-ops under
     shared scalars: with ``Y = T = 0`` the update vanishes and the
     recomposed windows write back exactly the values they gathered.
@@ -133,9 +130,8 @@ def _segment_apply_cols_shared_static(Yws, Ts, s1t, s2t, spt, vt, h1, transpose)
     collapses to two static slices + one concat.  The ``lax.scan`` form
     re-materializes the whole [S, k, R] work buffer every step — the carry
     is read by three dynamic slices before being updated, which defeats
-    in-place aliasing — and measured 11.5 ms of the 39 ms 20k-block
-    factorize while its window traffic is ~0.2 ms of HBM time; unrolled
-    with static offsets XLA updates the buffer in place.  Inactive trailing
+    in-place aliasing, so it moves far more than its window traffic;
+    unrolled with static offsets XLA updates the buffer in place.  Inactive trailing
     steps of padded segments are exact no-ops (``Y = T = 0`` makes the
     update vanish and the write-back restores the gathered values).
     """
@@ -179,8 +175,7 @@ def _p2_stream_plan(s1t, s2t, spt, A: int, L: int, R: int):
     ``mono`` — one contiguous window ``[s1_l, s2_l + tw_l)``.  On *gapped*
     chains (block rows ≫ column step — the head advances ``emit`` lanes per
     step while the tail advances a whole block height) that window grows
-    O(L·block_rows) wide and the per-step re-concat costs O(L²) traffic
-    (measured 7.2 ms of the 11.5 ms config-3 factorize).
+    O(L·block_rows) wide and the per-step re-concat costs O(L²) traffic.
 
     ``gap`` — two regions split at ``h = max_l(s1_l + sp_l)``, the furthest
     lane any head window ever reaches.  Region A ``[0, h)`` rides in a small
@@ -229,8 +224,7 @@ def _segment_apply_cols_stream(Yws, Ts, s1t, s2t, spt, vt, transpose):
 
     The unrolled-static form still updates a [S, k, R] HBM buffer twice per
     step, and in the factorize pipeline XLA fails to alias those updates —
-    each ``dynamic_update_slice`` measured ~154 µs of whole-buffer copy
-    (~10 ms of the 38 ms 20k-block factorize).  Here the work vector is
+    each ``dynamic_update_slice`` becomes a whole-buffer copy.  Here the work vector is
     never held as an updatable buffer at all: a live window VALUE spanning
     ``[s1_l, s2_l+A-sp_l)`` rolls right over the operand — finalized lanes
     are emitted on the left, pristine operand lanes ingested on the right
@@ -378,7 +372,7 @@ def _apply_cols_split(
     uniform path; ``gen_static`` carries each general segment's own scalar
     tuples (trimmed to its active steps) so those 2-3 segments ALSO unroll
     statically — the vmapped 32-step scan over just the irregular segments
-    measured 7.5 ms of the 20k-block factorize, pure scan-step latency."""
+    is pure scan-step latency."""
     S = vt.shape[0]
     e = 1 + nuni
     gi = np.array([0] + list(range(e, S)))
@@ -386,7 +380,7 @@ def _apply_cols_split(
         # batch-gather the few irregular segments' operands ONCE, then slice
         # the small gathered arrays per segment: per-step slices that remain
         # views of the full factor arrays re-pay the producer transpose on
-        # every step (measured 74 ms vs 14.6 ms at 20k blocks)
+        # every step
         Yg, Tg, vg = Yws[gi], Ts[gi], vt[gi]
         outs_g = []
         for k in range(len(gi)):
@@ -443,7 +437,7 @@ def _batched_wy_soa(Y_soa, T_aos, w_soa, transpose: bool, out_rows=None):
     only the first r output rows are formed (the fused solve feeds just the
     2o chain-space rows onward, so the m−2o pass-through rows of Y need only
     be READ for Yᵀw, never written back).  All contractions are
-    broadcast-multiply + axis-sum — VPU elementwise over the lane axis, no
+    broadcast-multiply + axis-sum — elementwise over the batch axis, no
     dot_general relayout of the SoA operand.
     """
     T_soa = jnp.transpose(T_aos, (1, 2, 0))  # [n, n, S]
@@ -502,7 +496,7 @@ def _seg_qt_program(
     scatter = scatter.at[seg_gather.reshape(-1)].set(flat, mode="drop")
     top = scatter[meta["row_order"]]
     # bottom region, SoA throughout ([rbot, k, S], matching the Yb store):
-    # transposing Yb to AoS would materialize its lane-padded form
+    # transposing Yb to AoS would add a relayout pass
     vb = top[m1:]
     w = jnp.where(
         meta["rbot_valid_t"][:, None, :],

@@ -235,8 +235,8 @@ def prepare_segmentation(self):
         chain_blocks.append(_BI(si * 2 * o, int(c0b), 2 * o, int(ncb)))
     # Re-block the chain into groups of G consecutive factors.  The scan
     # over the compressed chain is per-step-latency-bound (625 steps of
-    # [3o, 2o] panels ran ~23 ms factorize + two ~equal solve scans at
-    # 20k blocks); G-fold grouping cuts the step count G-fold — and the
+    # [3o, 2o] panels at 20k blocks, in the factorize and in both solve
+    # scans); G-fold grouping cuts the step count G-fold — and the
     # total reflector count too, since only one o-column carry overlap is
     # refactorized per GROUP instead of per block.  G is capped so the
     # grouped panel stays on the unrolled panel-QR path ((G+1)·o ≤ 32
@@ -294,64 +294,6 @@ def prepare_segmentation(self):
         jnp.asarray(cg["emit_rows"]),
         jnp.asarray(cg["ncols"]),
     )
-    # fused sequential-chain kernel gate + gather map: the scan over the
-    # compressed chain is per-step-dispatch-bound (~10 ms of the 20k-block
-    # factorize at 90 grouped steps); pallas_chain_qr runs the WHOLE chain
-    # in one launch with the carry in VMEM.  The kernel wants uniform
-    # carry depth after step 0 and one column increment (the last step's
-    # carry cut is dead), and panels pre-shifted in X-layout — the shift
-    # and transpose fold into this host-built gather map over comp's
-    # flattened [S, 2o, 2o] entries (sentinel = appended zero).
-    self._chain_pallas = None
-    nbc = len(chain_plan.blocks)
-    crs, cis = cg["carry_rows"], cg["col_inc"]
-    mcac = max(int(crs.max()), 1)
-    mcc = int(cg["ncols"].max())
-    mac = int(cg["active"].max())
-    mec = int(cg["emit_rows"].max())
-    ciu = int(cis[1]) if nbc >= 3 else int(cis[0])
-    if (
-        nbc >= 8
-        and mcc <= 32
-        and crs[0] == 0
-        and (cis[1 : nbc - 1] == ciu).all()
-    ):
-        # nbc >= 8: even a 12-step grouped chain costs ~216 µs/step in
-        # the scan (profiled on the config-3 plan: 2.6 ms for 12 steps of
-        # the unrolled 32-column body) — a single kernel launch is far
-        # under that at any step count the segmented gate admits
-        nsub = 8
-        nbp = -(-nbc // nsub) * nsub
-        sent = S * 4 * o * o
-        rmt = np.full((nbp, mcc, mac), sent, dtype=np.int64)
-        groups = (
-            [chain_blocks[g0 : g0 + G] for g0 in range(0, S, G)]
-            if G > 1
-            else [[b] for b in chain_blocks]
-        )
-        for g, blks in enumerate(groups):
-            c0g = min(b.col for b in blks)
-            r0g = blks[0].row
-            cr_g = int(crs[g])
-            for i, b in enumerate(blks):
-                si = b.row // (2 * o)
-                rr = np.arange(2 * o)[None, :]
-                cc = np.arange(b.ncols)[:, None]
-                rmt[
-                    g,
-                    (b.col - c0g) + cc,
-                    cr_g + (b.row - r0g) + rr,
-                ] = si * 4 * o * o + rr * 2 * o + cc
-        actc = np.zeros((nbp,), np.float32)
-        actc[:nbc] = 1.0
-        self._chain_pallas = dict(
-            map=_imap(rmt),
-            act=jnp.asarray(actc),
-            nb=nbc,
-            statics=dict(ma=mac, mc=mcc, mca=mcac, me=mec,
-                         ci=ciu, ci0=int(cis[0]), nsub=nsub),
-        )
-
     # device gather maps between padded segment rows and the chain layout
     seg_ncols_a = np.asarray(self._seg_ncols)
     self._top_valid = jnp.asarray(
@@ -359,7 +301,7 @@ def prepare_segmentation(self):
     )
     # each segment's bottom rows are the contiguous run starting right
     # after its local columns — the factorize cuts them with one batched
-    # dynamic_slice (element gathers are ~150M elem/s on TPU)
+    # dynamic_slice instead of an element gather
     self._bot_starts = _imap(np.minimum(seg_ncols_a, max_seg_rows))
     self._bot_valid = jnp.asarray(
         np.arange(rbot_max)[None, :] < np.asarray(rbot)[:, None]
@@ -387,13 +329,11 @@ def prepare_segmentation(self):
     self._rbot_gather = _imap(rg)
     self._rbot_valid = jnp.asarray(rg < self._nbot)
     # lane-major twins for the fused solve's SoA bottom apply
-    # (rows in sublanes, segments in lanes — matches the SoA Yb store)
+    # (segments minor — matches the SoA Yb store)
     self._rbot_gather_t = _imap(rg.T)
     self._rbot_valid_t = jnp.asarray(np.ascontiguousarray((rg < self._nbot).T))
     self._rest_pos = _imap(rp)
-    self._prepare_pallas_gate()
     self._prepare_p2_gate()
-    prepare_p2w(self)
 
 def prepare_p2_gate(self):
     """Gate + scalars for the shared-window phase-2 batch apply
@@ -486,7 +426,7 @@ def prepare_p2_gate(self):
             self._ncu = jnp.asarray(ncu)
             # host tuples select the unrolled-static back-substitution
             # (static slices + only-er-rows triangular unroll; the scan
-            # form pays ~27 µs/step of step latency)
+            # form pays a step latency per block)
             self._bs_static = (
                 tuple(int(x) for x in s1u),
                 tuple(int(x) for x in eru),
@@ -500,248 +440,6 @@ def prepare_p2_gate(self):
                 )
                 for s in [0] + list(range(1 + self._bs_nuni, S))
             )
-
-def prepare_pallas_gate(self):
-    """Decide whether the fused Pallas segment-chain kernel can run phase 1
-    for this plan (ops/pallas_banded.py) and precompute its static
-    geometry.  Requirements beyond the solver's own uniformity checks:
-    a single carry depth after step 0 (so the panel shift is static per
-    step), one body column increment with at most a distinct first-step
-    increment on segments 1.. (the dropped leading overlap), and panel
-    tiles small enough for VMEM / a bounded unrolled kernel."""
-    S, L = self.S, self.L
-    lg, act = self._loc_geom, self._active
-    kw = self._kw
-    ma, mc = kw["max_active"], kw["max_cols"]
-    mca, me = kw["max_carry"], kw["max_emit"]
-    ns = act.sum(axis=1)
-    cr, ci_a = lg["carry_rows"], lg["col_inc"]
-    ok = mc <= 16 and ma * mc <= 512
-    # double-buffered in/out tiles + carry scratch, one (8,128) fp32 tile
-    # per panel entry
-    vmem = (2 * (2 * ma * mc + mc + me * mc) + mca * mc) * 8 * 128 * 4
-    ok = ok and vmem < 12 * 2**20
-    # the per-step panel shift (carry_rows[s, l], including the shallower
-    # final-block carry) is applied on-device by the same _shift_panels
-    # gather the XLA path uses, so only the carry *extraction* increment
-    # must be static: one body value, with at most a distinct first-step
-    # value on segments 1.. (their dropped leading overlap).  The final
-    # step's increment is never consumed (the carry resets at l == 0).
-    ci_body = int(ci_a[0, 0]) if ns[0] >= 2 else 0
-    ci0_rest = int(ci_a[1, 0]) if S > 1 and ns[1] >= 2 else ci_body
-    for s in range(S):
-        n = int(ns[s])
-        if n >= 2:
-            first = ci_body if s == 0 else ci0_rest
-            ok = ok and int(ci_a[s, 0]) == first
-            ok = ok and bool((ci_a[s, 1 : n - 1] == ci_body).all())
-    ok = ok and 0 <= ci_body <= mc and 0 <= ci0_rest <= mc
-    self._pallas_gate = bool(ok)
-    self._pallas_ci = (ci_body, ci0_rest)
-    if ok:
-        from ..ops.pallas_banded import seg_pad
-
-        npad = seg_pad(S)
-        self._pallas_npad = npad
-        act_soa = np.zeros((L, 1, npad), np.float32)
-        act_soa[:, 0, :S] = act.T
-        self._act_soa = jnp.asarray(act_soa)
-
-
-def _p2w_sim_segment(s1, s2, sp, nact, a_arr, b_arr, A, mca, h, R, L):
-    """Provenance simulation of the phase-2 window apply for ONE segment
-    against the position-indexed Pallas kernel model
-    (:func:`~qrkit_tpu.ops.pallas_banded.pallas_segment_apply_w`).
-
-    Replays the exact position algebra of ``_segment_apply_cols`` (head read
-    ``[s1_l, s1_l+sp_l)``, tail read ``[s2_l, s2_l+A-sp_l)``, full write-back)
-    while tracking, per work-vector position, WHICH value lives there (a
-    pristine operand lane, or post-transform window row ``(l, r)``), and in
-    parallel the kernel's W-buffer state under the SHARED normalized window
-    starts ``(a_l, b_l)``.  Verifies that at every step each kernel row reads
-    exactly the value the true algebra reads: carried values must sit in W at
-    the kernel's index, first-touch pristine reads must see a still-zero W
-    slot (the pristine value rides in via the gather input), rows at
-    positions ``>= h`` must slice into W's never-written region.  Windows
-    are checked by VALUE PROVENANCE, not geometry — the gate round 3's
-    reverted "emit final rows" rewrite lacked (CLAUDE.md); any divergence
-    returns ``None`` and the caller keeps the XLA window apply for this
-    segment.
-
-    Returns ``(rowmap [L, A] int32, src [R] int32)``: ``rowmap[l, r]`` is
-    the position whose PRISTINE value feeds window row ``r`` of step ``l``
-    (sentinel ``R`` → zero), and ``src[p]`` is the flat ``l*A + r`` emission
-    finalizing position ``p`` (sentinel ``L*A`` → pristine — every write
-    also emits, so the last writer's emission IS the final value).
-    Reference semantics: SparseBlockYTY.h:101-139, SparseQRUtils.h:44-89.
-    """
-    PAD = R + mca + A + 8  # the apply's work buffer pads R by h1 + A zeros
-    P = np.full(PAD, -1, np.int64)  # -1 = pristine, else writer l*A + r
-    KW = np.full(h, -1, np.int64)  # kernel W provenance; -1 = zero
-    rowmap = np.full((L, A), R, np.int32)
-    arr = np.arange(A)
-    for l in range(nact):
-        s1l, s2l, spl = int(s1[l]), int(s2[l]), int(sp[l])
-        al, bl = int(a_arr[l]), int(b_arr[l])
-        if spl > mca:
-            return None
-        p = np.where(arr < spl, s1l + arr, s2l + arr - spl)
-        if np.unique(p).size != A or p.max() >= PAD or p.min() < 0:
-            return None
-        i = np.where(arr < mca, min(al, h) + arr, min(bl, h) + arr - mca)
-        wpos = np.where(arr < mca, al + arr, bl + arr - mca)
-        wi = i[wpos < h]
-        if np.unique(wi).size != wi.size:  # write-order would matter
-            return None
-        for r in range(A):
-            tag = P[p[r]]
-            if tag == -1:  # pristine: kernel W slot must still be zero
-                if i[r] < h and KW[i[r]] != -1:
-                    return None
-                if p[r] < R:
-                    rowmap[l, r] = p[r]
-                # p >= R: operand pad, value zero — sentinel already set
-            else:  # carried: W must hold exactly this value
-                if i[r] >= h or KW[i[r]] != tag:
-                    return None
-        # writes AFTER all reads, in both models
-        P[p] = l * A + arr
-        below = wpos < h
-        KW[i[below]] = l * A + arr[below]
-    src = np.full(R, L * A, np.int32)
-    fin = P[:R] >= 0
-    src[fin] = P[:R][fin].astype(np.int32)
-    return rowmap, src
-
-
-def prepare_p2w(self):
-    """Gate + maps for the fused Pallas phase-2 slab apply
-    (:func:`~qrkit_tpu.ops.pallas_banded.pallas_segment_apply_w`).
-
-    Derives the shared normalized window starts from the uniform run's
-    scalars, validates the kernel's W-buffer model against the true window
-    algebra with ONE provenance simulation of the shared uniform geometry,
-    and builds SHARED host maps: the first-touch pristine feed ``[L, A]``
-    (slab-row index per window row, sentinel → zero pad row) and the
-    last-writer emission gather ``[R]`` (flat ``l*A + r`` emission index
-    per work-vector position, sentinel → pristine).  Both are consumed as
-    ``jnp.take`` slice-gathers along the leading axis — a per-segment
-    ``[L, A, S]`` element-gather formulation measured 10 + 6.4 ms at
-    config 3 (~150M elem/s TPU gather) while the kernel itself runs in
-    0.85 ms; the shared row gathers move the same bytes at HBM stream
-    speed.  ONLY the uniform run rides the kernel; every generic segment
-    (index 0 and the irregular tail) keeps the XLA streaming apply
-    (measured ≈ 0.1 ms/segment) — its lanes ride through the kernel as
-    dead weight and are overwritten.  The whole path is disabled
-    (``self._p2w = None``) when the uniform run fails the simulation, the
-    generic segments lack static stream scalars, or the W buffer would
-    not fit VMEM."""
-    self._p2w = None
-    if not (
-        getattr(self, "_pallas_gate", False)
-        and getattr(self, "_p2_uniform", False)
-        and getattr(self, "_p2_static", None) is not None
-    ):
-        return
-    s1u, s2u, spu = self._p2_static[0], self._p2_static[1], self._p2_static[2]
-    S, L = self.S, self.L
-    kw = self._kw
-    A, mca, mc = kw["max_active"], kw["max_carry"], kw["max_cols"]
-    R = int(self._max_seg_rows)
-    ko = 2 * self._overlap
-    # mca >= 1: the kernel stacks the mca head rows (jnp.stack over
-    # range(mca) in _apply_w_kernel) — an empty stack would raise at trace
-    # time inside the jitted factorize, so zero-carry plans keep the XLA apply
-    if any(sp > mca for sp in spu) or mca >= A or mca < 1:
-        return
-    # W must hold exactly the MULTIPLY-TOUCHED positions: every toucher of a
-    # position writes it, so a position read by a later step needs its value
-    # carried in W, while singly-touched positions flow straight through the
-    # emission stream.  h = top of that region (gap-mode chains: the small
-    # head region, config-3: 124 of 1280; mono chains: ~the whole segment —
-    # the VMEM check below then decides honestly whether W fits).
-    top = max(s2 + A - sp for s2, sp in zip(s2u, spu)) + 1
-    cover = np.zeros(top, np.int64)
-    for s1, s2, sp in zip(s1u, s2u, spu):
-        cover[s1 : s1 + sp] += 1
-        cover[s2 : s2 + A - sp] += 1
-    multi = np.nonzero(cover >= 2)[0]
-    h = int(multi.max()) + 1 if multi.size else 0
-    wrows = h + max(A - mca, mca)
-    # W scratch + double-buffered in/out tiles + ~ma*kg live transform
-    # temporaries must fit VMEM (~16 MB/core); one (8, 128) fp32 tile per
-    # kernel-visible scalar.  kg = largest divisor of ko that fits — the
-    # kernel walks the operand columns kg at a time, re-streaming Y per
-    # group (cheap next to the 0.2 ms/step XLA dispatch it replaces).
-    kg = None
-    for cand in sorted(
-        (d for d in range(1, ko + 1) if ko % d == 0), reverse=True
-    ):
-        tiles = wrows * cand + 2 * (A * mc + mc + 2 * A * cand) + A * cand
-        if tiles * 8 * 128 * 4 <= 12 * 2**20:
-            kg = cand
-            break
-    if kg is None:
-        return
-    # normalized starts: rows [0, mca) at a_l + r, rows [mca, A) at
-    # b_l + (r - mca); rows the normalization can't place must sit at
-    # positions >= h (the sim verifies value-by-value)
-    a_arr = np.asarray(
-        [s1 if sp > 0 else s2 for s1, s2, sp in zip(s1u, s2u, spu)], np.int64
-    )
-    b_arr = np.asarray(
-        [s2 + (mca - sp) for s2, sp in zip(s2u, spu)], np.int64
-    )
-    act = self._active
-    # Every uniform segment matches the shared s1u/s2u/spu on its ACTIVE
-    # PREFIX (that is what _p2_nuni established), so one simulation of the
-    # longest prefix validates them all: a shorter segment's remaining
-    # steps run in the kernel as exact pass-throughs (phase 1 zeroes the
-    # inactive steps' Y/taus), re-emitting carried values and feeding
-    # pristine rows for positions its true transform never touches — the
-    # last-writer composition then yields that segment's correct result.
-    n1 = max(int(act[s].sum()) for s in range(1, 1 + self._p2_nuni))
-    if (
-        _p2w_sim_segment(
-            s1u[:n1], s2u[:n1], spu[:n1], n1, a_arr, b_arr, A, mca, h, R, L
-        )
-        is None
-    ):
-        return
-    # every generic segment keeps the XLA stream; each needs static scalars
-    gen = [0] + list(range(1 + self._p2_nuni, S))
-    p2g = self._p2_gen_static
-    if p2g is None:
-        return
-    excl_static = {s: p2g[gen.index(s)] for s in gen}
-    # shared feed / last-writer maps from one replay of the uniform windows.
-    # Steps beyond n1 (inactive padding) are exact kernel pass-throughs
-    # (tau = 0) re-emitting carried values to the same W slots, so the maps
-    # built over the active prefix stay correct for every uniform segment.
-    padr = R + mca + A + 8  # matches the sim's work-buffer padding
-    last = np.full(padr, -1, np.int64)
-    feed = np.full((L, A), R, np.int64)  # sentinel R: a zero pad row
-    arr = np.arange(A)
-    for l in range(n1):
-        p = np.where(
-            arr < int(spu[l]), int(s1u[l]) + arr, int(s2u[l]) + arr - int(spu[l])
-        )
-        fresh = last[p] == -1
-        feed[l][fresh] = p[fresh]
-        last[p] = l * A + arr
-    src = np.full(R, L * A, np.int64)
-    fin = last[:R] >= 0
-    src[fin] = last[:R][fin]
-    self._p2w = dict(
-        feed=_imap(feed),
-        src=_imap(src),
-        ab=_imap(np.stack([a_arr, b_arr], axis=1)),
-        statics=dict(
-            ma=A, mc=mc, mca=mca, ko=ko, kg=kg, h=h, wrows=wrows, padr=padr
-        ),
-        excl_static=excl_static,
-    )
-
 
 def detect_panel_fast(self, gm: np.ndarray, nnz: int):
     """Host-side gather-free panel-extraction detection (once per layout).

@@ -28,8 +28,8 @@ def _banded_solve_chunk_shared(
     solution/RHS windows are cut with a single batch ``dynamic_slice``
     instead of per-segment slices (which vmap lowers to gathers over the
     whole work buffer — that, plus a batched 10×10 ``triangular_solve``,
-    made the interior back-substitution 94 ms of the 107 ms fused solve at
-    20k blocks).  The per-block triangular solve is unrolled over the ≤16
+    made the interior back-substitution most of the fused solve at 20k
+    blocks).  The per-block triangular solve is unrolled over the ≤16
     emit rows as lane-wide vector ops; per-segment activity stays a vector
     select.  ``ypad`` [B, nloc+max_cols]; ``r_panels`` [B, L, me, mc];
     shared scalars [L]; ``active`` [B, L]."""
@@ -78,8 +78,8 @@ def _banded_solve_chunk_shared_static(
     The shared (col-offset, emit-rows, ncols) sequences are PLAN data, so
     every window cut/update is a static slice (XLA keeps the solution buffer
     in place) and the per-step triangular solve unrolls only the step's
-    ``er`` real rows — the ``lax.scan`` form cost ~27 µs/step of pure step
-    latency (0.87 ms of the 3.7 ms config-3 fused solve at L=32).  Inactive
+    ``er`` real rows — the ``lax.scan`` form pays a step latency per
+    block.  Inactive
     steps of padded segments are masked by ``active`` exactly as in the scan
     form (their zero pivots produce non-finite lanes that the select drops);
     ``active=None`` asserts every step is live (the trimmed general-segment
@@ -220,7 +220,7 @@ def build_solve_fn(self):
     # windows are batched dynamic slices of the apply output and the
     # interior rhs is formed per segment, skipping the full-length
     # scatter, the R-rows-first reorder gather, and the [rbot_max, S]
-    # bottom gather (three ~100k-element index ops, ~0.6 ms each on TPU)
+    # bottom gather (three ~100k-element index ops)
     seg_contig = self._seg_contig
     col_runs = self._col_runs
     R_seg, rbm = self._max_seg_rows, self._rbot_max
@@ -228,127 +228,124 @@ def build_solve_fn(self):
         self._sol_meta["bot_starts"] = self._bot_starts
         self._sol_meta["rbot_valid"] = self._rbot_valid
 
-    # `upto` truncates after a stage for the on-hardware latency budget
-    # (examples/profile_segmented.py, BANDED_PERF.md); "all" = production
-    @functools.partial(jax.jit, static_argnames=("upto",))
-    def sol(Yws, Ts, Yb, Tb, chain_seq, chain_r, j2_top, r_panels, b, meta, upto="all"):
+    # named scopes mark the stages a profiler trace attributes device time
+    # to (examples/profile_segmented.py)
+    @jax.jit
+    def sol(Yws, Ts, Yb, Tb, chain_seq, chain_r, j2_top, r_panels, b, meta):
         dt = b.dtype
         # stored factors arrive SoA (segment axis last, unpadded store);
         # the AoS working form here is jit-internal, compiler-laid-out
-        Yws = jnp.moveaxis(Yws, -1, 0)
-        Ts = jnp.moveaxis(Ts, -1, 0)
-        r_panels = jnp.moveaxis(r_panels, -1, 0)
-        seg_gather, seg_valid = meta["seg_gather"], meta["seg_valid"]
-        col_gather, col_valid = meta["col_gather"], meta["col_valid"]
-        # Q1ᵀ b (per-segment), lane-major ([S, 1, rows] — a [rows, 1]
-        # vector operand would be 128×-padded in the lane dim)
-        if seg_contig:
-            vt = jnp.pad(b, (0, S * R_seg - nrows_tot)).reshape(
-                S, 1, R_seg
-            )
-        else:
-            vt = jnp.where(
-                seg_valid[:, None, :],
-                b[jnp.clip(seg_gather, 0, nrows_tot - 1)][:, None, :],
-                jnp.zeros((), dt),
-            )
-        out = (
-            _apply_cols_split(Yws, Ts, meta, vt, h1, True, nuni, p2s, p2g)
-            if p2u
-            else _segment_apply_cols(
-                Yws, Ts, meta["starts"], meta["rows2d"], meta["carry2d"],
-                vt, h1, True,
-            )
-        )
-        # compressed boundary reduction Qᵀ + back-substitution: only the
-        # chain-space rows matter for x2, so the pass-through rows of the
-        # full _bot_qt are skipped — and the whole apply runs in the SoA
-        # layout Yb is stored in ([rbot, 2o, S], segments in lanes),
-        # forming only the 2o chain-space output rows
-        if col_runs:
-            # segment-space form: bottom windows are per-segment
-            # contiguous runs of the apply output right after the local
-            # R rows — one batched dynamic slice, no [nrows] scatter +
-            # reorder gather + [rbot_max, S] bottom gather
-            out2 = out[:, 0, :]  # [S, R]
-            outp = jnp.concatenate(
-                [out2, jnp.zeros((S, rbm), dt)], axis=1
-            )
-            wrows = jax.vmap(
-                lambda row, st: jax.lax.dynamic_slice(row, (st,), (rbm,))
-            )(outp, meta["bot_starts"])
-            wrows = jnp.where(meta["rbot_valid"], wrows, jnp.zeros((), dt))
-            w = wrows.T[:, None, :]  # [rbot_max, 1, S]
-        else:
-            scat = jnp.zeros((nrows_tot,), dt)
-            scat = scat.at[seg_gather.reshape(-1)].set(
-                out[:, 0, :].reshape(-1), mode="drop"
-            )
-            top = scat[meta["row_order"]]
-            w = jnp.where(
-                meta["rbot_valid_t"][:, None, :],
-                top[m1:][jnp.clip(meta["rbot_gather_t"], 0, nbot - 1)][
-                    :, None, :
-                ],
-                jnp.zeros((), dt),
-            )  # [rbot_max, 1, S]
-        if upto == "qt":
-            return jnp.sum(out) + jnp.sum(w)
-        w2o = _batched_wy_soa(Yb, Tb, w, True, out_rows=2 * o)
-        ybot = chain_seq.apply_qt(w2o[:, 0, :].T.reshape(nbot2))
-        if upto == "chainqt":
-            return jnp.sum(ybot)
-        x2 = banded_solve_r(
-            chain_r, meta["cols_d"], meta["emit_d"], meta["ncols_d"],
-            ybot[:m2],
-            max_emit=ckw["max_emit"], max_cols=ckw["max_cols"], n=m2,
-        )
-        if upto == "backsub2":
-            return jnp.sum(x2)
-        x2pad = jnp.concatenate(
-            [jnp.zeros((o,), dt), x2, jnp.zeros((o,), dt)]
-        )
-        contrib = highest_precision(jnp.einsum)(
-            "sjn,sj->sn", j2_top, x2pad[meta["x2_idx"]]
-        )
-        if col_runs:
-            # interior rhs per segment straight off the apply output:
-            # top[:m1] is the concatenation of out2[s, :nloc[s]] runs,
-            # and col_gather windows are exactly those runs
-            rhs_seg = out2[:, :nloc_max] - contrib  # [S, nloc_max]
-            ypad = jnp.where(
-                col_valid,
-                jnp.concatenate(
-                    [rhs_seg, jnp.zeros((S, mc), dt)], axis=1
-                ),
-                jnp.zeros((), dt),
-            )
-        else:
-            idx_top = jnp.where(
-                col_valid[:, :nloc_max], col_gather[:, :nloc_max], m1
-            )
-            rhs1 = top[:m1] - jnp.zeros((m1,), dt).at[idx_top].add(
-                contrib, mode="drop"
-            )
-            ypad = jnp.where(
-                col_valid, rhs1[col_gather], jnp.zeros((), dt)
-            )
-        if upto == "rhs":
-            return jnp.sum(ypad)
-        if bsu:
-            xs = _interior_backsub_split(
-                ypad, r_panels, meta, max_emit, mc, bs_nuni,
-                bss=bss, bs_gen=bsg,
-            )
-        else:
-            xs = jax.vmap(
-                lambda xp, yp, rp, cs, er, nc, act: _banded_solve_chunk(
-                    xp, yp, rp, cs, er, nc, act, max_emit=max_emit, max_cols=mc
+        with jax.named_scope("interior_qt"):
+            Yws = jnp.moveaxis(Yws, -1, 0)
+            Ts = jnp.moveaxis(Ts, -1, 0)
+            r_panels = jnp.moveaxis(r_panels, -1, 0)
+            seg_gather, seg_valid = meta["seg_gather"], meta["seg_valid"]
+            col_gather, col_valid = meta["col_gather"], meta["col_valid"]
+            # Q1ᵀ b (per-segment), lane-major ([S, 1, rows]: the long axis
+            # minor, as the narrow-operand applies expect)
+            if seg_contig:
+                vt = jnp.pad(b, (0, S * R_seg - nrows_tot)).reshape(
+                    S, 1, R_seg
                 )
-            )(
-                jnp.zeros_like(ypad), ypad, r_panels, meta["starts"],
-                meta["emit2d"], meta["ncols_loc_d"], meta["active_d"],
+            else:
+                vt = jnp.where(
+                    seg_valid[:, None, :],
+                    b[jnp.clip(seg_gather, 0, nrows_tot - 1)][:, None, :],
+                    jnp.zeros((), dt),
+                )
+            out = (
+                _apply_cols_split(Yws, Ts, meta, vt, h1, True, nuni, p2s, p2g)
+                if p2u
+                else _segment_apply_cols(
+                    Yws, Ts, meta["starts"], meta["rows2d"], meta["carry2d"],
+                    vt, h1, True,
+                )
             )
+            # compressed boundary reduction Qᵀ + back-substitution: only the
+            # chain-space rows matter for x2, so the pass-through rows of the
+            # full _bot_qt are skipped — and the whole apply runs in the SoA
+            # layout Yb is stored in ([rbot, 2o, S], segments in lanes),
+            # forming only the 2o chain-space output rows
+            if col_runs:
+                # segment-space form: bottom windows are per-segment
+                # contiguous runs of the apply output right after the local
+                # R rows — one batched dynamic slice, no [nrows] scatter +
+                # reorder gather + [rbot_max, S] bottom gather
+                out2 = out[:, 0, :]  # [S, R]
+                outp = jnp.concatenate(
+                    [out2, jnp.zeros((S, rbm), dt)], axis=1
+                )
+                wrows = jax.vmap(
+                    lambda row, st: jax.lax.dynamic_slice(row, (st,), (rbm,))
+                )(outp, meta["bot_starts"])
+                wrows = jnp.where(meta["rbot_valid"], wrows, jnp.zeros((), dt))
+                w = wrows.T[:, None, :]  # [rbot_max, 1, S]
+            else:
+                scat = jnp.zeros((nrows_tot,), dt)
+                scat = scat.at[seg_gather.reshape(-1)].set(
+                    out[:, 0, :].reshape(-1), mode="drop"
+                )
+                top = scat[meta["row_order"]]
+                w = jnp.where(
+                    meta["rbot_valid_t"][:, None, :],
+                    top[m1:][jnp.clip(meta["rbot_gather_t"], 0, nbot - 1)][
+                        :, None, :
+                    ],
+                    jnp.zeros((), dt),
+                )  # [rbot_max, 1, S]
+        with jax.named_scope("boundary_qt"):
+            w2o = _batched_wy_soa(Yb, Tb, w, True, out_rows=2 * o)
+            ybot = chain_seq.apply_qt(w2o[:, 0, :].T.reshape(nbot2))
+        with jax.named_scope("boundary_backsub"):
+            x2 = banded_solve_r(
+                chain_r, meta["cols_d"], meta["emit_d"], meta["ncols_d"],
+                ybot[:m2],
+                max_emit=ckw["max_emit"], max_cols=ckw["max_cols"], n=m2,
+            )
+        with jax.named_scope("interior_rhs"):
+            x2pad = jnp.concatenate(
+                [jnp.zeros((o,), dt), x2, jnp.zeros((o,), dt)]
+            )
+            contrib = highest_precision(jnp.einsum)(
+                "sjn,sj->sn", j2_top, x2pad[meta["x2_idx"]]
+            )
+            if col_runs:
+                # interior rhs per segment straight off the apply output:
+                # top[:m1] is the concatenation of out2[s, :nloc[s]] runs,
+                # and col_gather windows are exactly those runs
+                rhs_seg = out2[:, :nloc_max] - contrib  # [S, nloc_max]
+                ypad = jnp.where(
+                    col_valid,
+                    jnp.concatenate(
+                        [rhs_seg, jnp.zeros((S, mc), dt)], axis=1
+                    ),
+                    jnp.zeros((), dt),
+                )
+            else:
+                idx_top = jnp.where(
+                    col_valid[:, :nloc_max], col_gather[:, :nloc_max], m1
+                )
+                rhs1 = top[:m1] - jnp.zeros((m1,), dt).at[idx_top].add(
+                    contrib, mode="drop"
+                )
+                ypad = jnp.where(
+                    col_valid, rhs1[col_gather], jnp.zeros((), dt)
+                )
+        with jax.named_scope("interior_backsub"):
+            if bsu:
+                xs = _interior_backsub_split(
+                    ypad, r_panels, meta, max_emit, mc, bs_nuni,
+                    bss=bss, bs_gen=bsg,
+                )
+            else:
+                xs = jax.vmap(
+                    lambda xp, yp, rp, cs, er, nc, act: _banded_solve_chunk(
+                        xp, yp, rp, cs, er, nc, act, max_emit=max_emit, max_cols=mc
+                    )
+                )(
+                    jnp.zeros_like(ypad), ypad, r_panels, meta["starts"],
+                    meta["emit2d"], meta["ncols_loc_d"], meta["active_d"],
+                )
         idx = jnp.where(col_valid, col_gather, m1)
         x1 = jnp.zeros((m1,), dt).at[idx].set(xs, mode="drop")
         z = jnp.concatenate([x1, x2])

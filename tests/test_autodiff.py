@@ -8,7 +8,7 @@ the normal equations, differentiated by ordinary AD) — no finite differences,
 the suite runs in fp64.
 
 The reference C++ library has no autodiff story; this is a capability the
-TPU-native design gets from living inside JAX.
+design gets from living inside JAX.
 """
 import jax
 import jax.numpy as jnp

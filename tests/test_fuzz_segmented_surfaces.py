@@ -23,13 +23,10 @@ from qrkit_tpu.solvers import BandedBlockedQR, ComputationInfo, SegmentedBandedQ
 from qrkit_tpu.sparse import Permutation, SparseCSR
 
 
-# Dedicated p2w-regime cases (idx >= 10): tall blocks at segment_blocks=8,
-# where the fused Pallas W-buffer apply's provenance model
-# (segmented_plan.prepare_p2w) actually admits the geometry — the sb=3
-# random cases above legitimately fail its uniform-run simulation.
-# (seed, bc, ov, row multiplier, nblocks, ragged); gate firing verified by
-# test_fuzz_pallas_gate_coverage.
-P2W_CASES = {
+# Dedicated tall-block cases (idx >= 10) at segment_blocks=8, where the
+# shared-window phase-2 apply runs over a long uniform segment run.
+# (seed, bc, ov, row multiplier, nblocks, ragged).
+TALL_CASES = {
     10: (2000, 4, 2, 5, 32, False),
     11: (2001, 6, 2, 5, 28, True),
     12: (2002, 4, 1, 6, 40, False),
@@ -40,8 +37,8 @@ P2W_CASES = {
 def _random_geometry(idx: int):
     """Randomized banded geometry; the first cases force the config-3 regime
     (blocks much taller than the column step → gap rows in the chain)."""
-    if idx in P2W_CASES:
-        seed, bc, ov, mult, nb, ragged = P2W_CASES[idx]
+    if idx in TALL_CASES:
+        seed, bc, ov, mult, nb, ragged = TALL_CASES[idx]
         rng = np.random.default_rng(seed)
         return (bc - ov) * mult, bc, ov, nb, False, ragged, rng
     rng = np.random.default_rng(1000 + idx)
@@ -99,36 +96,22 @@ def _sparse_operand(rng, m, m2=5):
     return SparseCSR.from_triplets(r_, c_, v_, (m, m2))
 
 
-CASE_IDS = list(range(10)) + sorted(P2W_CASES)
-# Pallas-mode subset (interpret mode on the CPU mesh is slow — ~30-60 s per
-# case): tall/gapped + ragged + permuted chain-kernel cases, plus the four
-# p2w-regime cases.  use_pallas='auto' + _pallas_interpret exercises the
-# kernels wherever the gate passes; test_fuzz_pallas_gate_coverage below
-# guarantees the subset actually hits both the chain kernel and the fused
-# W-buffer apply at plan level.
-PALLAS_CASE_IDS = [0, 2, 5] + sorted(P2W_CASES)
+CASE_IDS = list(range(10)) + sorted(TALL_CASES)
 
 
-def _make_seg(bc, mode, idx):
-    seg = SegmentedBandedQR(
+def _make_seg(bc, idx):
+    return SegmentedBandedQR(
         suggested_block_cols=bc,
-        segment_blocks=8 if idx in P2W_CASES else 3,
+        segment_blocks=8 if idx in TALL_CASES else 3,
         fallback=False,
-        use_pallas="auto",
     )
-    if mode == "pallas":
-        seg._pallas_interpret = True
-    return seg
 
 
-@pytest.mark.parametrize(
-    "idx,mode",
-    [(i, "xla") for i in CASE_IDS] + [(i, "pallas") for i in PALLAS_CASE_IDS],
-)
-def test_fuzz_segmented_all_surfaces(idx, mode):
+@pytest.mark.parametrize("idx", CASE_IDS)
+def test_fuzz_segmented_all_surfaces(idx):
     br, bc, ov, nb, permute, ragged, rng = _random_geometry(idx)
     mat = _build(br, bc, ov, nb, permute, ragged, rng)
-    seg = _make_seg(bc, mode, idx).compute(mat)
+    seg = _make_seg(bc, idx).compute(mat)
     assert seg.info() == ComputationInfo.SUCCESS
     dense = mat.to_dense()
 
@@ -168,31 +151,13 @@ def test_fuzz_segmented_all_surfaces(idx, mode):
     seg.factorize_values(jnp.asarray(mat.data) * scale)
     assert seg.info() == ComputationInfo.SUCCESS
     mat2 = SparseCSR(mat.shape, mat.indptr, mat.indices, mat.data * scale)
-    seg2 = _make_seg(bc, mode, idx).compute(mat2)
+    seg2 = _make_seg(bc, idx).compute(mat2)
     d_refac = np.asarray(seg.r_diagonal())
     d_fresh = np.asarray(seg2.r_diagonal())
     np.testing.assert_allclose(d_refac, d_fresh, rtol=1e-12, atol=1e-12)
     b2 = mat2.to_dense() @ X_true[:, 0]
     x_refac = np.asarray(seg.solve(jnp.asarray(seg.rows_permutation().apply(b2))))
     assert np.allclose(x_refac, X_true[:, 0], atol=1e-6)
-
-
-def test_fuzz_pallas_gate_coverage():
-    """The Pallas subset must actually exercise the production kernels: the
-    phase-1 chain gate on most cases and the fused W-buffer apply (p2w) on
-    at least one — plan-level check, no factorization run."""
-    gate_hits = p2w_hits = 0
-    for idx in PALLAS_CASE_IDS:
-        br, bc, ov, nb, permute, ragged, rng = _random_geometry(idx)
-        mat = _build(br, bc, ov, nb, permute, ragged, rng)
-        seg = _make_seg(bc, "pallas", idx)
-        seg.analyze_pattern(mat)
-        if getattr(seg, "_pallas_gate", False):
-            gate_hits += 1
-            if getattr(seg, "_p2w", None) is not None:
-                p2w_hits += 1
-    assert gate_hits >= 5, f"only {gate_hits} pallas-gated cases in subset"
-    assert p2w_hits >= 3, f"only {p2w_hits} p2w-path cases in the subset"
 
 
 def test_fuzz_covers_gapped_geometry():

@@ -1,250 +1,122 @@
-"""Pallas fused tiny-block kernels vs. the XLA reference path (interpret mode
-on CPU; the compiled path is exercised on real TPU by bench.py / verify)."""
+"""Fused tiny-block Triton kernel vs the XLA path and NumPy fp64 (interpret
+mode on the CPU; the compiled kernel runs on the card through chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from qrkit_tpu.functional import block_diagonal_lstsq
 from qrkit_tpu.ops.pallas_blockdiag import (
-    pallas_block_diagonal_lstsq,
-    pallas_block_diagonal_qr_r,
+    _LANES,
+    block_lstsq,
+    block_lstsq_jnp,
+    block_rdiag,
+    block_rdiag_jnp,
 )
 
+SHAPES = [(7, 2), (3, 1), (5, 3), (2, 1)]
 
-@pytest.mark.parametrize("nb,br,bc", [(700, 7, 2), (64, 3, 1), (1024, 5, 3)])
+
+def _system(rng, nb, br, bc):
+    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc))
+    x_true = rng.normal(size=(nb, bc))
+    b = np.einsum("bij,bj->bi", blocks, x_true).reshape(-1)
+    return blocks, x_true, b
+
+
+def _lstsq_f64(blocks, b):
+    nb, br, _ = blocks.shape
+    bb = b.reshape(nb, br)
+    return np.stack(
+        [np.linalg.lstsq(blocks[i], bb[i], rcond=None)[0] for i in range(nb)]
+    )
+
+
+@pytest.mark.parametrize("nb,br,bc", [(700, 7, 2), (64, 3, 1), (1024, 5, 3), (700, 2, 1)])
 def test_pallas_lstsq_matches_xla(rng, nb, br, bc):
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    x_true = rng.normal(size=nb * bc).astype(np.float32)
-    b = np.einsum(
-        "bij,bj->bi", blocks.astype(np.float64), x_true.reshape(nb, bc).astype(np.float64)
-    ).astype(np.float32).reshape(-1)
+    blocks, x_true, b = _system(rng, nb, br, bc)
     xp = np.asarray(
-        pallas_block_diagonal_lstsq(jnp.asarray(blocks), jnp.asarray(b), interpret=True)
-    )
-    xx = np.asarray(block_diagonal_lstsq(jnp.asarray(blocks), jnp.asarray(b), pivot=False))
-    assert np.allclose(xp, x_true, atol=5e-4)
-    assert np.allclose(xp, xx, atol=5e-4)
+        block_lstsq(jnp.asarray(blocks), jnp.asarray(b), br, interpret=True)
+    ).reshape(nb, bc)
+    xx = np.asarray(
+        block_diagonal_lstsq(jnp.asarray(blocks), jnp.asarray(b), pivot=False)
+    ).reshape(nb, bc)
+    np.testing.assert_allclose(xp, x_true, atol=1e-10)
+    np.testing.assert_allclose(xp, xx, atol=1e-10)
+    # inconsistent rhs: the least-squares solution, not an exact one
+    noisy = b + rng.normal(size=b.shape)
+    xn = np.asarray(
+        block_lstsq(jnp.asarray(blocks), jnp.asarray(noisy), br, interpret=True)
+    ).reshape(nb, bc)
+    np.testing.assert_allclose(xn, _lstsq_f64(blocks, noisy), atol=1e-10)
 
 
-def test_pallas_qr_r(rng):
-    nb, br, bc = 300, 7, 2
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    r = np.asarray(pallas_block_diagonal_qr_r(jnp.asarray(blocks), interpret=True))
-    rref = np.stack([np.linalg.qr(blocks[i], mode="r") for i in range(nb)])
-    packed = np.stack([rref[:, 0, 0], rref[:, 0, 1], rref[:, 1, 1]], axis=1)
+@pytest.mark.parametrize("br,bc", SHAPES)
+def test_pallas_qr_r(rng, br, bc):
+    nb = 300
+    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc))
+    d = np.asarray(block_rdiag(jnp.asarray(blocks), br, interpret=True))
+    dref = np.stack([np.diag(np.linalg.qr(blocks[i], mode="r")) for i in range(nb)])
     # R unique up to row signs
-    assert np.allclose(np.abs(r), np.abs(packed), atol=5e-5)
+    np.testing.assert_allclose(np.abs(d.reshape(nb, bc)), np.abs(dref), atol=1e-10)
+    dj = np.asarray(block_rdiag_jnp(jnp.asarray(blocks), br))
+    np.testing.assert_array_equal(d.reshape(nb, bc), dj)
 
 
-def test_pallas_nonmultiple_tile(rng):
-    # nb far from a multiple of the lane tile exercises the padding path
-    nb, br, bc = 513, 7, 2
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    x_true = rng.normal(size=nb * bc).astype(np.float32)
-    b = np.einsum("bij,bj->bi", blocks, x_true.reshape(nb, bc)).reshape(-1)
+@pytest.mark.parametrize("nb", [1, _LANES - 1, _LANES + 1, 3 * _LANES + 17])
+def test_pallas_nonmultiple_tile(rng, nb):
+    """Batches that are not a multiple of the program size: the masked tail
+    lanes load identity blocks, store nothing, and leave real lanes exact."""
+    br, bc = 7, 2
+    blocks, x_true, b = _system(rng, nb, br, bc)
     xp = np.asarray(
-        pallas_block_diagonal_lstsq(jnp.asarray(blocks), jnp.asarray(b), interpret=True)
+        block_lstsq(jnp.asarray(blocks), jnp.asarray(b), br, interpret=True)
     )
-    assert np.allclose(xp, x_true, atol=5e-4)
+    assert xp.shape == (nb * bc,)
+    np.testing.assert_allclose(xp.reshape(nb, bc), x_true, atol=1e-10)
 
 
-def test_pallas_soa_entry_points(rng):
-    """SoA-native entry points (the LM-resident layout): results must match
-    the AoS wrapper bit-for-bit after relayout."""
-    from qrkit_tpu.ops.pallas_blockdiag import (
-        pallas_block_diagonal_lstsq_soa,
-        pallas_block_diagonal_qr_r_soa,
-        soa_pad,
-    )
-
-    nb, br, bc = 300, 5, 3
-    npad = soa_pad(nb)
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    x_true = rng.normal(size=(nb, bc)).astype(np.float32)
-    b = np.einsum("bij,bj->bi", blocks, x_true)
-    a_soa = np.zeros((br * bc, npad), np.float32)
-    a_soa[:, :nb] = blocks.transpose(1, 2, 0).reshape(br * bc, nb)
-    for j in range(bc):
-        a_soa[j * bc + j, nb:] = 1.0
-    b_soa = np.zeros((br, npad), np.float32)
-    b_soa[:, :nb] = b.T
-    x_soa = np.asarray(
-        pallas_block_diagonal_lstsq_soa(
-            jnp.asarray(a_soa), jnp.asarray(b_soa), interpret=True
-        )
-    )
-    assert x_soa.shape == (bc, npad)
-    assert np.allclose(x_soa[:, :nb].T, x_true, atol=5e-4)
-    assert np.allclose(x_soa[:, nb:], 0.0)  # identity pad blocks, zero rhs
-
-    r_soa = np.asarray(
-        pallas_block_diagonal_qr_r_soa(jnp.asarray(a_soa), br, interpret=True)
-    )
-    xa = np.asarray(
-        pallas_block_diagonal_lstsq(
-            jnp.asarray(blocks), jnp.asarray(b.reshape(-1)), interpret=True
-        )
-    )
-    assert np.array_equal(xa.reshape(nb, bc), x_soa[:, :nb].T)
-    rref = np.stack([np.linalg.qr(blocks[i], mode="r") for i in range(nb)])
-    tri = [(j, c) for j in range(bc) for c in range(j, bc)]
-    packed = np.stack([rref[:, j, c] for (j, c) in tri], axis=0)
-    assert np.allclose(np.abs(r_soa[:, :nb]), np.abs(packed), atol=5e-4)
+@pytest.mark.parametrize("br,bc", SHAPES)
+def test_pallas_soa_entry_points(rng, br, bc):
+    """Lane-major ``[br*bc, nb]`` storage reads through the same kernel and
+    gives bit-identical results to the AoS layout."""
+    nb = 300
+    blocks, _, b = _system(rng, nb, br, bc)
+    soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
+    xa = np.asarray(block_lstsq(jnp.asarray(blocks), jnp.asarray(b), br, interpret=True))
+    xs = np.asarray(block_lstsq(soa, jnp.asarray(b), br, soa=True, interpret=True))
+    np.testing.assert_array_equal(xa, xs)
+    da = np.asarray(block_rdiag(jnp.asarray(blocks), br, interpret=True))
+    ds = np.asarray(block_rdiag(soa, br, soa=True, interpret=True))
+    np.testing.assert_array_equal(da, ds)
 
 
-def test_pallas_soa_big_grid_step(rng):
-    """Batch axes that tile the 4096 grid step take the 32-sublane path;
-    results must match the reference solution exactly like the small path."""
-    from qrkit_tpu.ops.pallas_blockdiag import (
-        _sub_for,
-        pallas_block_diagonal_lstsq_soa,
-    )
-
-    nb, br, bc = 4096, 7, 2
-    assert _sub_for(nb) == 32
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    x_true = rng.normal(size=(nb, bc)).astype(np.float32)
-    b = np.einsum("bij,bj->bi", blocks, x_true)
-    a_soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
-    b_soa = jnp.asarray(np.ascontiguousarray(b.T))
-    x_soa = np.asarray(
-        pallas_block_diagonal_lstsq_soa(a_soa, b_soa, interpret=True)
-    )
-    assert np.allclose(x_soa.T, x_true, atol=5e-4)
-
-def test_pallas_soa_b_scale(rng):
-    """The SMEM rhs-scale operand: solving for s*b must equal s*x(b) exactly
-    (linearity — the kernel scales x on output), at s=1 must match the
-    unscaled kernel bit-for-bit, and a small batch axis must run as a single
-    grid step (the measured-best tier at the flagship size)."""
-    from qrkit_tpu.ops.pallas_blockdiag import (
-        _sub_for,
-        pallas_block_diagonal_lstsq_soa,
-    )
-
-    nb, br, bc = 2048, 7, 2
-    assert _sub_for(nb) == nb // 128  # single grid step
-    assert _sub_for(10240) == 80
-    assert _sub_for(503808) == 32  # the 500k tier is unchanged
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    b = rng.normal(size=(nb, br)).astype(np.float32)
-    a_soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
-    b_soa = jnp.asarray(np.ascontiguousarray(b.T))
-    x0 = np.asarray(pallas_block_diagonal_lstsq_soa(a_soa, b_soa, interpret=True))
-    x1 = np.asarray(
-        pallas_block_diagonal_lstsq_soa(
-            a_soa, b_soa, interpret=True, b_scale=jnp.float32(1.0)
-        )
-    )
-    assert np.array_equal(x0, x1)
-    s = np.float32(-2.5)
-    xs = np.asarray(
-        pallas_block_diagonal_lstsq_soa(
-            a_soa, b_soa, interpret=True, b_scale=jnp.float32(s)
-        )
-    )
-    assert np.array_equal(xs, s * x0)  # scale applied to x: exact
+def test_pallas_zero_column_block(rng):
+    """A block whose trailing column is all zero: the degenerate reflector
+    branch leaves a zero pivot (no NaN from the reflector itself), and every
+    other block still solves exactly."""
+    nb, br, bc = 40, 7, 2
+    blocks, x_true, b = _system(rng, nb, br, bc)
+    blocks[5, :, 1] = 0.0
+    b = np.einsum("bij,bj->bi", blocks, x_true).reshape(-1)
+    d = np.asarray(block_rdiag(jnp.asarray(blocks), br, interpret=True)).reshape(nb, bc)
+    assert d[5, 1] == 0.0 and np.isfinite(d).all()
+    xp = np.asarray(
+        block_lstsq(jnp.asarray(blocks), jnp.asarray(b), br, interpret=True)
+    ).reshape(nb, bc)
+    keep = np.arange(nb) != 5
+    np.testing.assert_allclose(xp[keep], x_true[keep], atol=1e-10)
 
 
-def test_pallas_soa_stepnorm(rng):
-    """The SMEM step-norm output: Σx² reduced in-kernel must match the host
-    reduction, x must be unchanged, and the accumulation must be correct
-    across multiple grid steps (sub override) and compose with b_scale."""
-    from qrkit_tpu.ops.pallas_blockdiag import pallas_block_diagonal_lstsq_soa
-
-    nb, br, bc = 2048, 7, 2
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    b = rng.normal(size=(nb, br)).astype(np.float32)
-    a_soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
-    b_soa = jnp.asarray(np.ascontiguousarray(b.T))
-    x0 = np.asarray(pallas_block_diagonal_lstsq_soa(a_soa, b_soa, interpret=True))
-    want = float((x0.astype(np.float64) ** 2).sum())
-    x1, sn = pallas_block_diagonal_lstsq_soa(
-        a_soa, b_soa, interpret=True, stepnorm=True
-    )
-    assert np.array_equal(np.asarray(x1), x0)
-    assert abs(float(sn) - want) < 1e-5 * want
-    # multi-grid-step accumulation (sub=8 -> 2 steps at nb=2048)
-    x2, sn2 = pallas_block_diagonal_lstsq_soa(
-        a_soa, b_soa, interpret=True, stepnorm=True, sub=8
-    )
-    assert np.array_equal(np.asarray(x2), x0)
-    assert abs(float(sn2) - want) < 1e-5 * want
-    # composes with b_scale: stepnorm reduces the SCALED x
-    s = np.float32(3.0)
-    x3, sn3 = pallas_block_diagonal_lstsq_soa(
-        a_soa, b_soa, interpret=True, stepnorm=True, b_scale=jnp.float32(s)
-    )
-    assert np.array_equal(np.asarray(x3), s * x0)
-    assert abs(float(sn3) - s * s * want) < 1e-4 * want
-
-
-def test_pallas_aosoa_matches_soa(rng):
-    """Chunk-major AoSoA entry (the preferred hot-loop layout): must match
-    the SoA kernel bit-for-bit through the layout round trip, for every
-    feature combination (plain / b_scale / stepnorm) and across multiple
-    grid steps (cps override)."""
-    from qrkit_tpu.ops.pallas_blockdiag import (
-        _cps_for,
-        from_aosoa,
-        pallas_block_diagonal_lstsq_aosoa,
-        pallas_block_diagonal_lstsq_soa,
-        to_aosoa,
-    )
-
-    assert _cps_for(10) == 10       # single grid step at the flagship 10k
-    assert _cps_for(16) == 16
-    assert _cps_for(490) == 10      # 500k tier (bench pads chunks to 10s)
-    assert _cps_for(980) == 10      # 1M tier
-    assert _cps_for(492) == 4       # un-padded chunk counts fall back
-    assert _cps_for(18) == 2
-    assert _cps_for(17) == 1
-
-    nb, br, bc = 4096, 7, 2
-    blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc)).astype(np.float32)
-    b = rng.normal(size=(nb, br)).astype(np.float32)
-    a_soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
-    b_soa = jnp.asarray(np.ascontiguousarray(b.T))
-    a4, b4 = to_aosoa(a_soa), to_aosoa(b_soa)
-    assert a4.shape == (nb // 1024, br * bc, 8, 128)
-    assert np.array_equal(np.asarray(from_aosoa(a4)), np.asarray(a_soa))
-
-    x_soa = np.asarray(pallas_block_diagonal_lstsq_soa(a_soa, b_soa, interpret=True))
-    x4 = pallas_block_diagonal_lstsq_aosoa(a4, b4, interpret=True)
-    assert np.array_equal(np.asarray(from_aosoa(x4)), x_soa)
-
-    s = np.float32(-1.75)
-    x4s = pallas_block_diagonal_lstsq_aosoa(
-        a4, b4, interpret=True, b_scale=jnp.float32(s)
-    )
-    assert np.array_equal(np.asarray(from_aosoa(x4s)), s * x_soa)
-
-    want = float((x_soa.astype(np.float64) ** 2).sum())
-    for cps in (1, 2, 4):  # multi-grid-step stepnorm accumulation
-        x4n, sn = pallas_block_diagonal_lstsq_aosoa(
-            a4, b4, interpret=True, stepnorm=True, cps=cps
-        )
-        assert np.array_equal(np.asarray(from_aosoa(x4n)), x_soa)
-        assert abs(float(sn) - want) < 1e-5 * want
-
-    # b_delta: the VMEM-tile dependency channel (the bench chain's carry)
-    # must equal solving with rhs row 0 of every block perturbed by the
-    # block's lane value, and be exact zero-delta pass-through
-    delta = rng.normal(size=(1, 1, 128)).astype(np.float32)
-    x4d = pallas_block_diagonal_lstsq_aosoa(
-        a4, b4, interpret=True, b_delta=jnp.asarray(delta), cps=2
-    )
-    b_pert = b.copy().reshape(nb // 1024, 8, 128, br)
-    b_pert[:, :, :, 0] += delta[0, 0]
-    a_ref = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
-    b_ref = jnp.asarray(
-        np.ascontiguousarray(b_pert.reshape(nb, br).T)
-    )
-    want_d = np.asarray(
-        pallas_block_diagonal_lstsq_soa(a_ref, b_ref, interpret=True)
-    )
-    assert np.array_equal(np.asarray(from_aosoa(x4d)), want_d)
-    x40 = pallas_block_diagonal_lstsq_aosoa(
-        a4, b4, interpret=True, b_delta=jnp.zeros((1, 1, 128), jnp.float32)
-    )
-    assert np.array_equal(np.asarray(from_aosoa(x40)), x_soa)
+@pytest.mark.parametrize("br,bc", SHAPES)
+def test_jnp_recurrence_matches_numpy(rng, br, bc):
+    """The plain jax.numpy recurrence (the kernel's reference) against
+    NumPy fp64 on both layouts."""
+    nb = 200
+    blocks, _, b = _system(rng, nb, br, bc)
+    noisy = b + rng.normal(size=b.shape)
+    want = _lstsq_f64(blocks, noisy)
+    xa = np.asarray(block_lstsq_jnp(jnp.asarray(blocks), jnp.asarray(noisy.reshape(nb, br))))
+    soa = jnp.asarray(blocks.transpose(1, 2, 0).reshape(br * bc, nb))
+    xs = np.asarray(block_lstsq_jnp(soa, jnp.asarray(noisy.reshape(nb, br)), soa=True))
+    np.testing.assert_allclose(xa, want, atol=1e-10)
+    np.testing.assert_array_equal(xa, xs)

@@ -1,10 +1,11 @@
-"""Class-API Pallas tier of BlockDiagonalQR vs the XLA path (interpret mode).
+"""Class-API kernel tier of BlockDiagonalQR vs the XLA path (interpret mode).
 
-The SoA kernel tier (use_pallas) must be protocol-equivalent to the vmapped
+The fused kernel tier (use_pallas) must be protocol-equivalent to the vmapped
 XLA path: same factors where exposed, same least-squares solutions, same
 health/rank semantics — including the lazily materialized dense surfaces.
 Reference semantics: BlockDiagonalSparseQR.h:432-526.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +15,8 @@ from qrkit_tpu.solvers import BlockDiagonalQR
 from qrkit_tpu.solvers.block_diagonal import QFormat
 
 
-def _mk(rng, nb=70, br=7, bc=2, tail_rows=0, tail_cols=0):
-    blocks = jnp.asarray(rng.uniform(0.5, 5.0, size=(nb, br, bc)))
+def _mk(rng, nb=70, br=7, bc=2, tail_rows=0, tail_cols=0, dtype=None):
+    blocks = jnp.asarray(rng.uniform(0.5, 5.0, size=(nb, br, bc)), dtype=dtype)
     return BlockDiagonal(blocks, nb * br + tail_rows, nb * bc + tail_cols)
 
 
@@ -78,23 +79,53 @@ def test_soa_container_roundtrip_and_solver(rng):
         np.asarray(qx.solve(jnp.asarray(b))),
         rtol=0, atol=1e-10,
     )
+    # dense surfaces rebuilt from the lane-major store
+    np.testing.assert_allclose(
+        np.asarray(qp.matrix_r_dense()), np.asarray(qx.matrix_r_dense()),
+        rtol=1e-12, atol=1e-12,
+    )
 
 
-def test_auto_selects_xla_off_tpu(rng):
+def test_auto_selects_xla_on_cpu(rng):
+    """On the CPU backend "auto" keeps the XLA path."""
     mat = _mk(rng, nb=10)
     qr = BlockDiagonalQR(QFormat.FULL_Q, pivot=False)  # auto
     qr.compute(mat)
     assert qr._pallas_mode is False
 
 
+@pytest.mark.parametrize(
+    "backend,dtype,pivot,shape,want",
+    [
+        ("gpu", jnp.float32, False, (7, 2), True),
+        ("gpu", jnp.float64, False, (7, 2), False),   # fp32 only
+        ("gpu", jnp.float32, True, (7, 2), False),    # ColPiv stays on XLA
+        ("gpu", jnp.float32, False, (2, 7), False),   # landscape
+        ("gpu", jnp.float32, False, (16, 5), False),  # too many entries
+        ("cpu", jnp.float32, False, (7, 2), False),
+    ],
+)
+def test_auto_selection_rule(rng, monkeypatch, backend, dtype, pivot, shape, want):
+    """"auto" picks the kernel only on a GPU backend, in fp32, for
+    supported geometry; the decision is made per compute()."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    mat = _mk(rng, nb=10, br=shape[0], bc=shape[1], dtype=dtype)
+    qr = BlockDiagonalQR(QFormat.FULL_Q, pivot=pivot)
+    assert qr._pallas_active(mat) is want
+
+
 def test_force_pallas_raises_on_unsupported(rng):
     mat = _mk(rng, nb=10)
     with pytest.raises(ValueError, match="use_pallas"):
         BlockDiagonalQR(pivot=True, use_pallas=True).compute(mat)
+    with pytest.raises(ValueError, match="use_pallas"):
+        BlockDiagonalQR(pivot=False, use_pallas=True).compute(
+            _mk(rng, nb=10, br=2, bc=3)
+        )
 
 
 def test_pallas_dispatch_pins(rng):
-    """Pallas-tier compute and vector solve are ONE program each."""
+    """Kernel-tier compute and vector solve are ONE program each."""
     from qrkit_tpu import count_dispatches
 
     mat = _mk(rng, nb=40)
@@ -103,9 +134,9 @@ def test_pallas_dispatch_pins(rng):
     mat2 = BlockDiagonal(mat.blocks * 1.000001, mat.nrows, mat.ncols)
     with count_dispatches() as d:
         qp.compute(mat2)
-    assert d.count <= 1, f"pallas compute dispatched {d.count}"
+    assert d.count <= 1, f"kernel compute dispatched {d.count}"
     b = jnp.asarray(rng.normal(size=mat.nrows))
     qp.solve(b)
     with count_dispatches() as d:
         qp.solve(b)
-    assert d.count <= 1, f"pallas solve dispatched {d.count}"
+    assert d.count <= 1, f"kernel solve dispatched {d.count}"

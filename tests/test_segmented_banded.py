@@ -132,7 +132,7 @@ def test_gather_free_extraction_fast_paths(rng):
     """Row-sorted banded layouts must take the gather-free panel/slab
     extraction (reshape + mask + static slice; seam-window slab cut) — a
     silent fallback to the element gather is a ~50x regression of the
-    factorize's extraction stage on TPU.  The 7x2 fixture's layout is NOT
+    factorize's extraction stage.  The 7x2 fixture's layout is NOT
     run-contiguous per panel and must keep the gather fallback; both must
     produce correct factors."""
     mat = _bench_shape_banded(160, rng)
@@ -185,8 +185,8 @@ def test_tall_block_config3_geometry(rng):
 def test_shared_backsub_gate_and_equality(rng):
     """The uniform fixture must take the shared-scalar interior
     back-substitution (the vmapped per-segment chunk + batched 10x10
-    triangular_solve was 94 ms of the 107 ms fused solve at 20k blocks),
-    and the two paths must agree to fp roundoff."""
+    triangular_solve is the slow form at 20k blocks), and the two paths
+    must agree to fp roundoff."""
     spj = overlapping_block_diagonal_matrix(NUM_PARAMS, NUM_RESIDUALS, rng, False)
     qr = SegmentedBandedQR(suggested_block_cols=2, segment_blocks=8).compute(spj)
     assert qr._delegate is None
